@@ -1,9 +1,8 @@
 // scenekit — native host-side scene preprocessing for raytracer_tpu.
 //
 // The reference builds its per-mesh BVH in native code (a single-thread
-// CUDA SAH builder, reference Core/Mesh.cuh:121-219). Our TPU runtime
-// keeps the render path in XLA but, like the reference, does scene
-// preprocessing natively: this library provides a top-down binned-SAH
+// CUDA SAH builder, reference Core/Mesh.cuh:121-219). Like the
+// reference, this project does scene preprocessing natively: this library provides a top-down binned-SAH
 // BVH4 builder (higher quality than the pure-XLA LBVH fallback in
 // raytracer_tpu/ops/bvh.py, and ~100x faster than the Python collapse).
 //

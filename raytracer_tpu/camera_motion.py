@@ -3,8 +3,8 @@
 The reference flies the camera with WASD/Space/LCtrl + right-mouse-drag
 (Core/Camera.cuh:88-157): movement speed 1.0 units/s along ±front/±right
 and ±world-up, mouse sensitivity 0.2°/px with inverted axes and a 0.5
-exponential smoothing factor, pitch clamped to ±89°. A TPU pod render is
-headless, so instead of an event pump these are pure functions — apply a
+exponential smoothing factor, pitch clamped to ±89°. An accelerator
+render is headless, so instead of an event pump these are pure functions — apply a
 scripted motion sequence to a Camera to reproduce any reference flight
 path (e.g. for animation renders or pose-matched comparisons).
 """

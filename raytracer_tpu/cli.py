@@ -1,7 +1,7 @@
-"""Command-line driver — the TPU-native analog of the reference's app
-entry + frame orchestration (EntryPoint.cu:14-42, Raytracer.h:52-71).
+"""Command-line driver — the analog of the reference's app entry + frame
+orchestration (EntryPoint.cu:14-42, Raytracer.h:52-71).
 
-There is no interactive SFML window on a headless TPU pod
+There is no interactive SFML window on a headless accelerator host
 (WindowManager.h is presentation-only); instead renders go to PNG/NPY,
 with resumable sample accumulation for long HQ renders (the reference's
 F-key "high quality mode", Core/Camera.cuh:52-65, becomes --spp).
@@ -38,6 +38,7 @@ def build_scene(name: str, assets_dir: str):
 
 
 def main(argv=None):
+    """Render as the arguments say; returns (linear f32[H,W,3], seconds)."""
     from raytracer_tpu.utils import jaxcache
 
     jaxcache.enable()
@@ -45,7 +46,7 @@ def main(argv=None):
     from raytracer_tpu.camera import make_camera
     from raytracer_tpu.config import PRESETS, RenderConfig
 
-    ap = argparse.ArgumentParser(description="TPU-native path tracer")
+    ap = argparse.ArgumentParser(description="JAX path tracer")
     ap.add_argument("--preset", choices=sorted(PRESETS), default=None)
     ap.add_argument("--scene", default="cornell_bunny",
                     choices=["cornell_spheres", "cornell_materials", "cornell", "cornell_bunny"])
@@ -59,8 +60,8 @@ def main(argv=None):
     ap.add_argument("--assets", default="assets/models")
     ap.add_argument("--integrator", choices=["wavefront", "megakernel", "fused"],
                     default="wavefront",
-                    help="'fused' = whole path loop in one Pallas kernel "
-                         "(ops/pallas_megakernel.py; requires a bvh4 scene)")
+                    help="'fused' = whole path loop in one native kernel "
+                         "(ops/fused_kernel.py; requires a bvh4 scene)")
     ap.add_argument("--checkpoint", default=None,
                     help="npz accumulation checkpoint for resumable renders")
     ap.add_argument("--camera", default="showcase", choices=["showcase", "reference"],
@@ -111,7 +112,7 @@ def main(argv=None):
                                                out_path="preview/preview.png")
         log_metrics("render", rays_per_sec=meter.rays_per_sec, seconds=meter.elapsed)
         _write_outputs(args, cfg, linear, meter.elapsed)
-        return
+        return linear, meter.elapsed
 
     t0 = time.perf_counter()
     if args.checkpoint:
@@ -124,11 +125,11 @@ def main(argv=None):
 
         linear = render_image_sharded(scene, cam, cfg, key)
     elif args.integrator == "fused":
-        from raytracer_tpu.models.fused import fused_available, render_image_fused
+        from raytracer_tpu.models.fused import render_image_fused
+        from raytracer_tpu.ops.fused_kernel import fused_megakernel_available
 
-        if not fused_available(scene, cfg):
-            raise SystemExit("--integrator fused needs a bvh4 scene within "
-                             "the kernel's sphere/material budgets "
+        if not fused_megakernel_available(scene):
+            raise SystemExit("--integrator fused needs a bvh4 scene "
                              "(use cornell_bunny / cornell_materials)")
         linear = render_image_fused(scene, cam, cfg.replace(rng_impl="ktf"), key)
     elif args.integrator == "wavefront":
@@ -142,6 +143,7 @@ def main(argv=None):
     linear.block_until_ready()
     dt = time.perf_counter() - t0
     _write_outputs(args, cfg, linear, dt)
+    return linear, dt
 
 
 def _write_outputs(args, cfg, linear, dt):

@@ -38,20 +38,13 @@ class RenderConfig:
     # (one nonzero+gather, outside the hot loop) into an n/div-sized
     # buffer and the bounce loop continues there. Kills the late-frame
     # iterations where <10% of lanes are live but every sweep still
-    # paid full-size camera/RNG/traversal cost (~50 ms/iteration at 2K).
+    # paid full-size camera/RNG/traversal cost.
     # Bit-exact: RNG is (pixel,sample,bounce)-keyed and per-lane fp
     # accumulation order is preserved (tests/test_wavefront.py).
-    # () disables compaction (the round-1 lane-stable behavior). Stage
-    # overhead is ~18 gather/scatter thunks (~10 ms at 2K) vs ~50 ms per
-    # saved full-size iteration, so the cascade starts early (n/2).
+    # () disables compaction (the lane-stable behavior). A stage costs
+    # a few gathers and scatters, far less than a full-size iteration,
+    # so the cascade starts early (n/2).
     drain_cascade: tuple = (2, 8, 32, 128)
-    # Re-sort the live wavefront by (direction octant, origin Morton
-    # cell) before each bounce's traversal. MEASURED HARMFUL with the
-    # sub-warp kernel + two-level split (the argsort/permute gathers
-    # cost more than the saved traversal: 2K frame 3.7s -> 11.6s with
-    # sorting on); kept as an option for denser scenes. Only affects
-    # the fused Pallas path; results identical modulo closest-hit ties.
-    sort_rays: bool = False
     # Edge-aware / reparameterized visibility for inverse rendering
     # (BASELINE north star; diff path only): adds a VALUE-ZERO
     # smoothed-boundary light-visibility term (control variate:
@@ -68,7 +61,7 @@ class RenderConfig:
     # RNG implementation: "jax" (jax.random fold chains — the default
     # and historical oracle) or "ktf" (utils/ktf.py counter-based
     # Threefry-2x32 on plain int32 ops — the SAME function the fused
-    # Pallas megakernel runs in-kernel, so fused ≡ wavefront ≡
+    # path-loop kernel runs, so fused ≡ wavefront ≡
     # megakernel equality holds bit-for-bit within the ktf family;
     # across families agreement is statistical only).
     rng_impl: str = "jax"

@@ -1,7 +1,7 @@
 """Differentiable inverse rendering (BASELINE config[3]).
 
-The reference has no differentiability at all — this is a capability the
-TPU build adds per the BASELINE north star: pixel gradients w.r.t.
+The reference has no differentiability at all — this is a capability this
+build adds per the BASELINE north star: pixel gradients w.r.t.
 material albedo / roughness / IOR / emission and camera params flow
 through the integrator (detached traversal, reparameterized sampling —
 see ops/intersect.py and ops/materials.py), enabling recovery of scene
@@ -9,7 +9,7 @@ materials from a target image by gradient descent.
 
 `make_train_step` builds a jitted (optionally mesh-sharded) Adam step:
 the pixel axis is sharded with `shard_map`, the loss/grads of the shared
-material parameters are `psum`-all-reduced over ICI — the reference has
+material parameters are `psum`-all-reduced over the mesh — the reference has
 no analog (single GPU, no collectives; SURVEY.md §2.2).
 """
 
@@ -124,9 +124,8 @@ def adam_init(params: dict) -> AdamState:
 
 def cosine_lr(lr0: float, total_steps: int, lr_min_frac: float = 0.1):
     """Cosine decay lr0 → lr0*lr_min_frac over total_steps (then flat).
-    The r3 run oscillated in a fixed band for 550 steps at constant lr
-    (INVERSE_r03.json); decay converts that oscillation into
-    convergence."""
+    At constant lr the loss oscillates in a fixed band; decay converts
+    that oscillation into convergence."""
     import jax.numpy as jnp
 
     def fn(step):
@@ -173,9 +172,8 @@ def make_train_step_multi(
 ):
     """Jitted Adam step whose gradient AVERAGES over K matched
     (key, target) pairs per step (vmap over the sample axis), instead of
-    round-robin through them one at a time. Round-robin made the r3 loss
-    orbit the per-key optima in a fixed band (INVERSE_r03.json); the
-    averaged objective has the true parameters as its exact optimum and
+    round-robin through them one at a time. Round-robin makes the loss
+    orbit the per-key optima in a fixed band; the averaged objective has the true parameters as its exact optimum and
     a K-fold lower gradient variance. `lr_fn(step)` overrides the
     constant lr (see cosine_lr)."""
     import numpy as np
@@ -286,7 +284,7 @@ def make_train_step(
     """Returns a jitted train_step: train_step(params, adam_state, key)
     → (params, adam_state, loss). Initialize optimizer state separately
     with adam_init(params). If `mesh` is given, pixels are sharded over
-    its first axis and parameter grads are psum-reduced over ICI."""
+    its first axis and parameter grads are psum-reduced over it."""
     import numpy as np
 
     h, w = cfg.height, cfg.width
@@ -336,7 +334,7 @@ def make_train_step(
         def shard_fn(params, key, px, py, tgt, w):
             # RNG is pixel-keyed; no per-shard decorrelation needed.
             loss, grads = jax.value_and_grad(local_loss)(params, key, px, py, tgt, w)
-            # All-reduce over ICI: shared params, sharded pixels. The
+            # All-reduce over the mesh: shared params, sharded pixels. The
             # weights sum to 1 globally, so psum (not pmean) completes
             # the weighted mean exactly — padding contributes nothing.
             grads = jax.tree_util.tree_map(lambda g: jax.lax.psum(g, axis), grads)

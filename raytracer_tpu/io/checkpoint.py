@@ -2,7 +2,7 @@
 
 The reference has NO persistence at all — the framebuffer lives only in
 the SFML window (WindowManager.h:79-93) and a crash loses everything
-(SURVEY.md §5 "Checkpoint / resume"). The TPU build makes the HQ
+(SURVEY.md §5 "Checkpoint / resume"). This build makes the HQ
 2K/2000spp workload resumable at spp-batch granularity: the f32 sample
 accumulator + the done-sample counter are written to an npz after every
 batch, and a restarted job continues from the last batch. Because RNG is
@@ -42,7 +42,7 @@ def _rng_stream_id(cfg, integrator: str) -> str:
     always draws the ktf counter stream; wavefront/megakernel draw
     cfg.rng_impl. Mixing streams in one accumulator silently breaks the
     resumed==uninterrupted invariant, so the stream id is part of the
-    checkpoint header (ADVICE r3)."""
+    checkpoint header."""
     return "ktf" if (integrator == "fused" or cfg.rng_impl == "ktf") else "jax"
 
 
@@ -52,7 +52,7 @@ def render_image_resumable(scene, cam, cfg, key, ckpt_path: str,
     """Resumable render: accumulates spp in batches, saving
     (accumulated sum, samples done) after each. Returns the mean linear
     image f32[H,W,3]. `integrator`: 'wavefront' (fast path), 'fused'
-    (one-dispatch Pallas path loop), or 'megakernel' (row-chunked oracle
+    (one-dispatch fused path-loop kernel), or 'megakernel' (row-chunked oracle
     path)."""
     spp_per_batch = spp_per_batch or cfg.spp_per_pass
     h, w = cfg.height, cfg.width

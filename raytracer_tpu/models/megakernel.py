@@ -1,10 +1,10 @@
 """Masked megakernel integrator — the correctness oracle and default path.
 
-This is the TPU-native restatement of the reference's per-thread
+This is the data-parallel restatement of the reference's per-thread
 `rayColor` loop (CUDAKernels.h:102-145): instead of one divergent CUDA
 thread per pixel, the whole ray wavefront advances through a static
 `lax.fori_loop` over bounces with per-lane alive masks. Dead lanes ride
-along masked — on a VPU this wastes lanes late in the path (the wavefront
+along masked — this wastes lanes late in the path (the wavefront
 integrator in models/wavefront.py compacts them) but is branch-free,
 fully fused by XLA, and reverse-differentiable (fori_loop with a static
 trip count lowers to scan).

@@ -3,7 +3,7 @@
 The reference builds its per-mesh BVH with a single CUDA thread doing a
 top-down SAH build (Core/Mesh.cuh:121-219) and its scene BVH with a
 median split (Core/BVHNode.cuh:21-84) — both `<<<1,1>>>` sequential
-kernels. On TPU we build a *linear BVH* instead (SURVEY.md §2.1 "Mesh"
+kernels. Here we build a *linear BVH* instead (SURVEY.md §2.1 "Mesh"
 row; acceleration structure is output-invariant as long as closest-hit
 semantics hold):
 

@@ -1,4 +1,4 @@
-"""4-wide BVH (BVH4): collapse of the binary LBVH for TPU traversal.
+"""4-wide BVH (BVH4): collapse of the binary LBVH for wide traversal.
 
 Why: the binary lockstep traversal (ops/traverse.py) pays ~6 scattered
 gathers per step and visits ~2x more nodes than a 4-wide tree. A BVH4
@@ -80,9 +80,8 @@ def _leaf_code(lo: int, count: int) -> int:
 def align_leaves_to_rows(children: np.ndarray, tri: np.ndarray,
                          prim_index: np.ndarray, face_mat: np.ndarray):
     """Re-pack sorted triangles so every leaf range starts at a multiple
-    of 8: one leaf == one 128-lane row of the Pallas kernel's packed
-    triangle table (8 records x 16 lanes), fetched with a single aligned
-    row load and STATIC record slices. Padding slots hold degenerate
+    of 8, so every leaf starts on an aligned 8-triangle group of the
+    triangle table. Padding slots hold degenerate
     triangles (e1=e2=0 -> Möller–Trumbore rejects at the determinant
     epsilon) and are additionally gated by the leaf count.
 
@@ -157,10 +156,8 @@ def widen_bvh(b4: Bvh4, width: int = 8) -> Bvh4:
     greedily absorbing internal children into their parents (largest
     child box first — the biggest subtrees gain the most from the
     extra fanout). Leaf codes and the triangle table are untouched, so
-    the result is output-invariant; only visit counts change: a
-    128-ray sub-warp on interior bounce rays does ~54 lockstep visits
-    on the widened tree vs ~64 on the BVH4
-    (scripts/tree_shape_study.py). Stack bound is recomputed for
+    the result is output-invariant; only visit counts change (fewer,
+    wider node visits per ray). Stack bound is recomputed for
     (width−1) pushes per level."""
     ch = np.asarray(b4.children)
     b = np.asarray(b4.bounds)

@@ -33,20 +33,17 @@ PRIM_TRI = 1
 PACKET_MIN_RAYS = 4096
 
 
-def _traversal_backend() -> str:
-    """'pallas' (packet kernel, TPU default), 'packets' (XLA packet
-    loop, CPU default), or 'lane' (per-lane XLA loop). Overridable via
-    RAYTRACER_TPU_TRAVERSAL."""
-    import os
+def _traversal_backend(backend: str | None = None) -> str:
+    """'packets' (XLA packet loop) or 'lane' (per-lane XLA loop): the
+    platform's choice (raytracer_tpu/backends.py) unless `backend` names
+    one."""
+    if backend is None:
+        from raytracer_tpu import backends
 
-    choice = os.environ.get("RAYTRACER_TPU_TRAVERSAL")
-    if choice in ("pallas", "packets", "lane"):
-        return choice
-    try:
-        platform = jax.devices()[0].platform
-    except Exception:
-        platform = "cpu"
-    return "pallas" if platform == "tpu" else "packets"
+        return backends.for_platform().traversal
+    if backend not in ("packets", "lane"):
+        raise ValueError(f"unknown traversal backend {backend!r}")
+    return backend
 
 
 class HitIds(NamedTuple):
@@ -66,11 +63,12 @@ class HitAttrs(NamedTuple):
     uv: jnp.ndarray         # f32[N,2]
 
 
-def intersect_scene(scene: Scene, origins, dirs, t_min, t_max=BIG) -> HitIds:
+def intersect_scene(scene: Scene, origins, dirs, t_min, t_max=BIG,
+                    backend: str | None = None) -> HitIds:
+    """Closest hit over spheres and triangles. `backend` picks the BVH
+    traversal ('packets' or 'lane'); by default the platform's."""
     # The hit DECISION is detached by design (SURVEY.md §2.3 item 5):
     # gradients route through shade_hit's differentiable recomputation.
-    # Detaching here also keeps ray tangents out of the Pallas traversal,
-    # which has no AD rule.
     origins = jax.lax.stop_gradient(origins)
     dirs = jax.lax.stop_gradient(dirs)
     scene = jax.lax.stop_gradient(scene)
@@ -79,8 +77,7 @@ def intersect_scene(scene: Scene, origins, dirs, t_min, t_max=BIG) -> HitIds:
     )
     if scene.bvh4 is not None:
         # Two-level split: brute-test the large triangles first; the
-        # primed t_max culls most tree traversals (the Pallas kernel
-        # repeats this pre-pass internally — harmless and identical).
+        # primed t_max culls most tree traversals.
         t_cap = jnp.minimum(ts, t_max)
         tb = None
         if scene.bvh4.brute_tri is not None:
@@ -88,18 +85,8 @@ def intersect_scene(scene: Scene, origins, dirs, t_min, t_max=BIG) -> HitIds:
                 origins, dirs, scene.bvh4.brute_tri, t_min, t_cap)
             bprim = scene.bvh4.brute_prim[bslot]
             t_cap = jnp.minimum(t_cap, tb)
-        backend = _traversal_backend()
-        if backend == "pallas" and origins.shape[0] >= PACKET_MIN_RAYS:
-            from raytracer_tpu.ops import pallas_traverse
-
-            try:
-                interp = jax.devices()[0].platform != "tpu"
-            except Exception:
-                interp = True
-            tt, tid = pallas_traverse.intersect_bvh4_pallas(
-                origins, dirs, scene.bvh4, t_min, t_cap, interpret=interp
-            )
-        elif backend != "lane" and origins.shape[0] >= PACKET_MIN_RAYS:
+        if (_traversal_backend(backend) == "packets"
+                and origins.shape[0] >= PACKET_MIN_RAYS):
             from raytracer_tpu.ops import packets
 
             tt, tid = packets.intersect_bvh4_packets(
@@ -177,90 +164,3 @@ def shade_hit(scene: Scene, origins, dirs, ids: HitIds) -> HitAttrs:
         mat_id=jnp.where(is_tri, tr_mat, sp_mat),
         uv=jnp.where(sel, tr_uv, sp_uv),
     )
-
-
-class FrameHit(NamedTuple):
-    """Gather-free closest-hit record for the wavefront fast path."""
-
-    hit: jnp.ndarray         # bool[N]
-    point: jnp.ndarray       # f32[N,3]
-    normal: jnp.ndarray      # f32[N,3] front-facing unit normal
-    front_face: jnp.ndarray  # bool[N]
-    params: "object"         # materials.MatParams per lane
-
-
-def fused_trace_available(scene: Scene, n_rays: int) -> bool:
-    """True when the zero-gather Pallas trace+shade path applies."""
-    return (
-        scene.bvh4 is not None
-        and scene.bvh4.face_mat is not None
-        and n_rays >= PACKET_MIN_RAYS
-        and _traversal_backend() == "pallas"
-    )
-
-
-def trace_frame_fused(scene: Scene, origins, dirs, t_min, interpret=None,
-                      sort: bool = False, active=None) -> FrameHit:
-    """Closest hit + per-lane material params with ZERO XLA gathers:
-    spheres via an unrolled select sweep, triangles via the Pallas packet
-    kernel (which returns mat id + geometric normal), material table via
-    unrolled selects (ops/materials.lookup_params). Forward-only — used
-    by the wavefront integrator; the differentiable megakernel path keeps
-    intersect_scene/shade_hit.
-
-    `active` (bool[N], optional): lanes whose result is unused this
-    bounce (RR-killed, sample budget exhausted) get t_lim = -1, so they
-    never register packet hits and contribute ~zero traversal work —
-    crucial in the wavefront's drain tail where few lanes remain live."""
-    from raytracer_tpu.ops import materials as mat_ops
-    from raytracer_tpu.ops.pallas_traverse import trace_closest_pallas
-
-    if interpret is None:
-        try:
-            interpret = jax.devices()[0].platform != "tpu"
-        except Exception:
-            interpret = True
-
-    sph = scene.spheres
-    n = origins.shape[0]
-    a = jnp.sum(dirs * dirs, axis=-1)
-    t_sph = jnp.full((n,), BIG, jnp.float32)
-    c_sel = jnp.zeros((n, 3), jnp.float32)
-    r_sel = jnp.ones((n,), jnp.float32)
-    m_sel = jnp.zeros((n,), jnp.int32)
-    for s in range(sph.count):
-        oc = origins - sph.center[s]
-        half_b = jnp.sum(oc * dirs, axis=-1)
-        c = jnp.sum(oc * oc, axis=-1) - sph.radius[s] * sph.radius[s]
-        disc = half_b * half_b - a * c
-        sq = jnp.sqrt(jnp.maximum(disc, 0.0))
-        root_near = (-half_b - sq) / a
-        root_far = (-half_b + sq) / a
-        near_ok = (root_near >= t_min) & (root_near <= t_sph)
-        far_ok = (root_far >= t_min) & (root_far <= t_sph)
-        root = jnp.where(near_ok, root_near, root_far)
-        valid = (disc >= 0.0) & (near_ok | far_ok)
-        better = valid & (root < t_sph)
-        t_sph = jnp.where(better, root, t_sph)
-        b3 = better[:, None]
-        c_sel = jnp.where(b3, sph.center[s], c_sel)
-        r_sel = jnp.where(better, jnp.where(sph.radius[s] != 0.0, sph.radius[s], 1.0), r_sel)
-        m_sel = jnp.where(better, sph.mat_id[s], m_sel)
-
-    t_lim = t_sph if active is None else jnp.where(active, t_sph, -1.0)
-    rec = trace_closest_pallas(origins, dirs, scene.bvh4, t_lim,
-                               t_min=float(t_min), sort=sort, interpret=interpret)
-    tri_wins = rec["t"] < t_sph
-    t = jnp.where(tri_wins, rec["t"], t_sph)
-    hit = t < BIG
-    point = origins + t[:, None] * dirs
-
-    outward = (point - c_sel) / r_sel[:, None]
-    raw_n = jnp.where(tri_wins[:, None], rec["normal"], outward)
-    nn = raw_n / jnp.sqrt(jnp.maximum(jnp.sum(raw_n * raw_n, axis=-1, keepdims=True), 1e-24))
-    front = jnp.sum(dirs * nn, axis=-1) < 0.0
-    n_facing = jnp.where(front[:, None], nn, -nn)
-
-    mat_id = jnp.where(tri_wins, rec["mat_id"], m_sel)
-    params = mat_ops.lookup_params(scene.materials, mat_id)
-    return FrameHit(hit=hit, point=point, normal=n_facing, front_face=front, params=params)

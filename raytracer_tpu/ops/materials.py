@@ -3,9 +3,9 @@
 Replaces the reference's device-virtual dispatch
 (Core/Material.cuh:49-150) with a branch-free select over the material
 type tag: all four scatter candidates are computed for every lane with
-shared random draws and the per-ray winner is chosen with `where`. On a
-TPU VPU this is cheaper than divergence-managing control flow — each
-branch is a handful of fused elementwise ops.
+shared random draws and the per-ray winner is chosen with `where` —
+each branch is a handful of fused elementwise ops, and the select keeps
+the whole bounce one data-parallel program.
 
 Sampling semantics match the reference exactly:
   * Lambertian (Core/Material.cuh:66-77): dir = normal + unit_vector,
@@ -52,30 +52,7 @@ class MatParams(NamedTuple):
     ior: jnp.ndarray        # f32[N]
 
 
-# Tables up to this many rows are fetched with unrolled selects instead
-# of gathers — a gather costs ~0.6 ms fixed on the TPU backend
-# (ARCHITECTURE.md), a dozen fused selects are ~free.
-SELECT_TABLE_MAX = 24
-
-
 def lookup_params(materials: Materials, mat_id: jnp.ndarray) -> MatParams:
-    m = materials.count
-    if m <= SELECT_TABLE_MAX:
-        n = mat_id.shape[0]
-        mtype = jnp.zeros((n,), jnp.int32)
-        albedo = jnp.zeros((n, 3), jnp.float32)
-        emission = jnp.zeros((n, 3), jnp.float32)
-        roughness = jnp.zeros((n,), jnp.float32)
-        ior = jnp.ones((n,), jnp.float32)
-        for r in range(m):
-            sel = mat_id == r
-            sel3 = sel[:, None]
-            mtype = jnp.where(sel, materials.type[r], mtype)
-            albedo = jnp.where(sel3, materials.albedo[r], albedo)
-            emission = jnp.where(sel3, materials.emission[r], emission)
-            roughness = jnp.where(sel, materials.roughness[r], roughness)
-            ior = jnp.where(sel, materials.ior[r], ior)
-        return MatParams(mtype, albedo, emission, roughness, ior)
     return MatParams(
         materials.type[mat_id],
         materials.albedo[mat_id],

@@ -1,21 +1,19 @@
-"""Packet BVH4 traversal — the TPU-shaped tracing core.
+"""Packet BVH4 traversal in XLA — the wavefront's traversal.
 
-Per-lane (one ray = one lane) BVH traversal is hostile to TPU: every
-step gathers node rows at 460k distinct indices, and XLA's TPU gather at
-that scale runs orders of magnitude below HBM bandwidth (measured
-~0.02 M rays/s on scene-covering rays). This module replaces it with
-classic *packet traversal* re-expressed as dense XLA ops:
+Classic *packet traversal* expressed as dense XLA ops:
 
   * rays are sorted by a coherence key (direction octant + origin
     Morton code) and grouped into packets of P rays,
   * each packet traverses the BVH4 with ONE shared traversal state —
-    the per-step node reads are [G]-indexed gathers (G = N/P packets,
-    hundreds not hundreds-of-thousands of distinct indices), and all
-    intersection math is dense [G, P] vector work at full lane
+    the per-step node reads are [G]-indexed gathers (G = N/P packets),
+    and all intersection math is dense [G, P] vector work at full lane
     occupancy,
   * a packet descends into a child iff ANY of its rays hits the child
     box (closest-hit stays exact per ray via per-ray t_best pruning),
   * results are scattered back through the inverse permutation.
+
+On the GPU this measured faster under the 2K wavefront than the
+per-lane walk of ops/bvh4.py (CHANGES.md), so it is the default there.
 
 Coherent camera packets visit nearly the per-ray optimal node set;
 incoherent bounce packets visit the union of their rays' node sets —

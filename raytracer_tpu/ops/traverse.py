@@ -1,7 +1,7 @@
 """Wavefront BVH traversal.
 
 The reference traverses per-thread with an explicit stack and divergent
-control flow (Core/Mesh.cuh:55-110, Core/BVHNode.cuh:115-156). The TPU
+control flow (Core/Mesh.cuh:55-110, Core/BVHNode.cuh:115-156). This
 formulation keeps the *whole ray wavefront* advancing in lockstep inside
 one `lax.while_loop`: each step, every active lane either tests its
 current internal node's two child AABBs (near-child-first, far pushed)
@@ -10,8 +10,8 @@ reference's closest-hit semantics (candidate interval [t_min,
 closest-so-far], slab test hit iff tmax > tmax-clamped tmin,
 Core/AABB.cuh:123-146).
 
-This is the pure-XLA correctness path; a Pallas short-stack kernel is
-the optimization path (same interface).
+This is the pure-XLA path over the binary LBVH; ops/bvh4.py and
+ops/packets.py walk the wider BVH4/BVH8.
 """
 
 from __future__ import annotations

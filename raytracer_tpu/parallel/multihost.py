@@ -1,15 +1,16 @@
-"""Multi-host pod-slice entry points.
+"""Multi-host entry points.
 
 The reference is a single-process, single-GPU program (SURVEY.md §2.2).
-The TPU framework scales across hosts with `jax.distributed`: every host
-runs the same program, the global device mesh spans the slice, the pixel
-axis is sharded globally (zero-collective forward), and inverse-render
-gradients psum over ICI/DCN.
+This framework scales across hosts with `jax.distributed`: every host
+runs the same program, the global device mesh spans all hosts' devices,
+the pixel axis is sharded globally (zero-collective forward), and
+inverse-render gradients psum over the mesh.
 
-Usage on each host of a slice:
+Usage on each host:
 
     from raytracer_tpu.parallel import multihost
-    multihost.initialize()                 # env-driven (TPU pods auto-detect)
+    multihost.initialize(coordinator_address="host0:port",
+                         num_processes=N, process_id=rank)
     mesh = multihost.global_mesh()
     img = multihost.render_image_multihost(scene, cam, cfg, key, mesh)
 
@@ -29,8 +30,8 @@ from raytracer_tpu.parallel.sharding import RAY_AXIS, _padded_pixel_grid, _rende
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """jax.distributed.initialize with TPU-pod auto-detection; a no-op
-    when already initialized or when running single-process."""
+    """jax.distributed.initialize; a no-op when already initialized or
+    when running single-process. GPU hosts need all three arguments."""
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
@@ -74,7 +75,7 @@ def scaling_report(scene, cam, cfg, key, device_counts=None) -> dict:
     counts = device_counts or sorted({1, 2, 4, 8, len(all_devices)})
     # Efficiency is ALWAYS normalized to the 1-device row: baselining at
     # the smallest *measured* count would silently hide 1→2 chip loss if
-    # a caller starts the list at 2 (VERDICT r2). Measure 1 device even
+    # a caller starts the list at 2. Measure 1 device even
     # when the caller didn't ask for it.
     if 1 not in counts:
         counts = [1] + list(counts)

@@ -2,14 +2,14 @@
 
 The reference is strictly single-GPU/single-process (SURVEY.md §2.2: no
 NCCL/MPI/sockets anywhere; its only "transport" is PCIe cudaMemcpy).
-The TPU framework scales natively:
+This framework scales natively:
 
   * forward rendering shards the RAY/PIXEL axis across the mesh — tiles
     are independent, so the forward pass needs ZERO cross-chip
     collectives; scene/camera params are replicated at setup (the analog
     of the reference's one-time H2D scene upload, SceneManager.h:151-166),
   * the backward pass of the shared scene/material/camera parameters
-    all-reduces gradients with `psum` over ICI (BASELINE north star),
+    all-reduces gradients with `psum` over the mesh (BASELINE north star),
   * multi-host entry uses `jax.distributed.initialize` + the same mesh.
 
 Tested on a virtual 8-device CPU mesh (tests/conftest.py) and dry-run
@@ -39,9 +39,8 @@ _log = logging.getLogger(__name__)
 
 def _interleave_packets(px, py, n_shards: int):
     """Round-robin PACKET→shard permutation (shard s takes packets
-    s, s+S, 2S+s, ...): per-shard path cost varies ~1.8x max/mean across
-    screen regions (light pool vs bunny — DRAIN_BALANCE_r03.json) and the
-    frame ends at the SLOWEST shard; striding equalizes the mix
+    s, s+S, 2S+s, ...): per-shard path cost varies across screen regions
+    (light pool vs bunny) and the frame ends at the SLOWEST shard; striding equalizes the mix
     statistically with ZERO collectives. Pixel-keyed RNG keeps the image
     bit-identical (tests/test_sharding.py::test_interleave_permutation_*).
 
@@ -149,14 +148,14 @@ def render_image_wavefront_sharded(
     """Full-image render with the PERF integrator (lane-stable wavefront,
     models/wavefront.py) sharded over the mesh — the path the 2K/2000spp
     multi-host workload (BASELINE config 5) actually runs. Lanes are in
-    8x128 screen-tile order (compact Pallas packets per shard); the tile
+    8x128 screen-tile order (compact 1024-lane packets per shard); the tile
     count is a multiple of 1024 so any power-of-two shard count divides
     it evenly with whole tiles per shard.
 
     `interleave` assigns PACKETS to shards round-robin (shard s takes
     packets s, s+S, 2S+s, ...) instead of contiguous screen blocks:
-    per-shard path cost varies ~1.8x max/mean across screen regions
-    (light pool vs bunny — DRAIN_BALANCE_r03.json), and the frame ends
+    per-shard path cost varies across screen regions
+    (light pool vs bunny), and the frame ends
     at the SLOWEST shard. Striding equalizes the mix statistically with
     ZERO collectives; pixel-keyed RNG keeps the image bit-identical
     (tests/test_sharding.py)."""
@@ -215,12 +214,12 @@ def render_image_wavefront_rebalanced(
 ):
     """Sharded wavefront render with the CROSS-SHARD DRAIN REBALANCE
     (models/wavefront.render_pixels_wavefront_rebalanced): once the
-    per-shard tails shrink, pending lanes are pooled over ICI and
+    per-shard tails shrink, pending lanes are pooled over the mesh and
     re-striped so every shard drains an equal mix. Bit-identical per
     pixel to the unbalanced render (pixel-keyed RNG; running-total acc
     migration). With report_iters=True also returns the per-shard
     post-rebalance drain iteration counts i32[n_shards] — max/mean of
-    which is the balance metric (DRAIN_REBALANCE_r04.json)."""
+    which is the balance metric."""
     from raytracer_tpu.models.wavefront import _tiled_pixel_grid
 
     mesh = make_mesh() if mesh is None else mesh
@@ -245,10 +244,10 @@ def render_image_wavefront_rebalanced(
 
 @partial(jax.jit, static_argnames=("cfg", "mesh", "spp"))
 def _render_sharded_fused(scene, cam, px, py, cfg, key, mesh, spp):
-    from raytracer_tpu.ops.pallas_megakernel import render_tiles_fused
+    from raytracer_tpu.ops.fused_kernel import render_tiles_fused
 
     def local_render(scene, cam, px, py, key):
-        # One Pallas path-loop dispatch per shard, zero collectives;
+        # One fused-kernel dispatch per shard, zero collectives;
         # ktf RNG is (pixel, sample, bounce)-keyed so the sharded image
         # equals the single-device fused render exactly.
         return render_tiles_fused(scene, cam, cfg, key, px, py, spp=spp)
@@ -272,26 +271,23 @@ def render_image_fused_sharded(
     interleave: bool = True,
 ) -> jnp.ndarray:
     """Full-image render with the PRODUCTION integrator — the fused
-    path-loop megakernel (ops/pallas_megakernel.py, one dispatch per
-    shard per frame) — sharded over the mesh, so BASELINE config[5]'s
-    multi-host workload runs the fastest backend (VERDICT r3 next #3).
-    Packets are round-robin interleaved across shards like the sharded
-    wavefront; each shard must receive a whole number of 1024-ray
-    packets."""
-    from raytracer_tpu.models.wavefront import _tiled_pixel_grid
-    from raytracer_tpu.ops.pallas_megakernel import (
-        fused_megakernel_available)
+    path-loop kernel (ops/fused_kernel.py, one dispatch per shard per
+    frame) — sharded over the mesh. Packets of 1024 lanes are
+    round-robin interleaved across shards like the sharded wavefront;
+    each shard must receive a whole number of packets."""
+    from raytracer_tpu.models.fused import _fused_pixel_grid
+    from raytracer_tpu.ops.fused_kernel import fused_megakernel_available
 
     mesh = make_mesh() if mesh is None else mesh
     n_shards = mesh.devices.size
-    px, py, inv = _tiled_pixel_grid(cfg)
+    px, py, inv = _fused_pixel_grid(cfg)
     g = px.shape[0] // 1024
     if g % n_shards:
         raise ValueError(
             f"packet count {g} not divisible by mesh size {n_shards}")
-    if not fused_megakernel_available(scene, px.shape[0] // n_shards):
-        raise ValueError("scene exceeds the fused-kernel budgets "
-                         "(see ops/pallas_megakernel.py)")
+    if not fused_megakernel_available(scene):
+        raise ValueError("scene unsupported by the fused kernel "
+                         "(see ops/fused_kernel.py)")
     unperm = None
     if interleave:
         px, py, unperm = _interleave_packets(px, py, n_shards)
@@ -329,7 +325,7 @@ def _render_sharded_2d(scene, cam, px, py, cfg, key, mesh, spp, integrator):
         # Each spp-shard renders its own contiguous sample window —
         # RNG is (pixel, sample)-keyed, so window j draws exactly the
         # samples [j*shard_spp, (j+1)*shard_spp) of the single-device
-        # pass — and the mean rides an ICI psum (the only collective).
+        # pass — and the mean rides a psum (the only collective).
         j = jax.lax.axis_index(SPP_AXIS)
         offset = (j * shard_spp).astype(jnp.int32)
         if integrator == "wavefront":

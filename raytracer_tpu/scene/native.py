@@ -6,16 +6,16 @@ natively, Core/Mesh.cuh:121-219). `build_bvh4_native` is a drop-in
 producer of ops/bvh4.Bvh4 using a binned-SAH builder — better tree
 quality than the XLA LBVH + Python collapse, and ~100x faster collapse.
 
-The shared library is compiled on demand with g++ (cached next to the
-source); callers should catch `NativeUnavailable` and fall back to the
-pure-Python path (scene/builder.py does).
+The shared library is compiled from source at first use
+(utils/nativebuild.py); a failed build raises `NativeUnavailable`, which
+scene/builder.py turns into the pure-Python path where the platform
+allows it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 
 import numpy as np
 
@@ -26,28 +26,18 @@ class NativeUnavailable(RuntimeError):
     pass
 
 
-def _source_dir() -> str:
-    return os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", "native"))
-
-
 def _load():
     global _LIB
     if _LIB is not None:
         return _LIB
-    src_dir = _source_dir()
-    src = os.path.join(src_dir, "scenekit.cpp")
-    lib_path = os.path.join(src_dir, "libscenekit.so")
-    if not os.path.exists(src):
-        raise NativeUnavailable(f"missing {src}")
-    if not os.path.exists(lib_path) or os.path.getmtime(lib_path) < os.path.getmtime(src):
-        try:
-            subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-o", lib_path, src],
-                check=True,
-                capture_output=True,
-            )
-        except (subprocess.CalledProcessError, FileNotFoundError) as e:
-            raise NativeUnavailable(f"scenekit compile failed: {e}") from e
+    from raytracer_tpu.utils import nativebuild
+
+    src = os.path.join(nativebuild.NATIVE_DIR, "scenekit.cpp")
+    try:
+        lib_path = nativebuild.build_library(
+            "scenekit", [src], ["g++", "-O3", "-shared", "-fPIC"])
+    except nativebuild.NativeBuildError as e:
+        raise NativeUnavailable(str(e)) from e
     lib = ctypes.CDLL(lib_path)
     lib.scenekit_build_bvh4.restype = ctypes.c_int
     lib.scenekit_build_bvh4.argtypes = [

@@ -2,7 +2,7 @@
 
 The reference builds an object graph of device-virtual Hittables inside
 `<<<1,1>>>` construction kernels (CUDAKernels.h:56-100, HittableList.cuh).
-On TPU there is no virtual dispatch: the scene is a pytree of flat arrays
+Here there is no virtual dispatch: the scene is a pytree of flat arrays
 — a material table, a sphere list, and one merged triangle soup — all
 first-class jit inputs, replicated across devices, and differentiable.
 

@@ -1,8 +1,8 @@
 """Image output.
 
-TPU-native replacement for the reference's presentation path
+Replacement for the reference's presentation path
 (WindowManager.h:79-93 — D2H copy + vertical flip + SFML draw): renders
-are headless on a pod, so the framebuffer is written as PNG (pure
+are headless, so the framebuffer is written as PNG (pure
 zlib encoder, no external deps) or NPY. The vertical flip is already
 baked into pixel generation (render.py), so images here are row-0-top.
 """

@@ -1,23 +1,22 @@
 """Kernel-portable counter-based RNG — Threefry-2x32 on int32 vector ops.
 
-Why this exists: the fused Pallas megakernel (ops/pallas_megakernel.py)
-must draw randoms INSIDE a Mosaic kernel, where `jax.random` is
-unavailable and `bitcast_convert_type` miscompiles on the 2026-08-18
-backend (CLAUDE.md). This module pins ONE spec — standard Threefry-2x32
-(20 rounds, the same block cipher jax.random uses) with an explicit
-(pixel, sample, bounce, purpose) counter layout — implemented in plain
-jnp int32 ops (add / xor / shifts; no bitcast, no gather, no key
-opacity) so the SAME function runs:
+Why this exists: the fused path-loop kernel (ops/fused_kernel.py,
+native/pathtrace.h) draws its randoms inside the kernel, where
+`jax.random` is unavailable. This module pins ONE spec — standard
+Threefry-2x32 (20 rounds, the same block cipher jax.random uses) with an
+explicit (pixel, sample, bounce, purpose) counter layout — implemented in
+plain jnp int32 ops (add / xor / shifts), and the kernel implements the
+same spec in C++, so:
 
-  * inside Pallas kernels on (8,128) tiles, and
-  * in the XLA integrators (megakernel / wavefront with
-    cfg.rng_impl="ktf"),
+  * the kernel's draws, and
+  * the XLA integrators' draws (megakernel / wavefront with
+    cfg.rng_impl="ktf")
 
-making in-kernel and out-of-kernel draws BIT-IDENTICAL. The original
-`utils/rng.py` jax.random path remains the default and the oracle; ktf
-is a parallel RNG mode, statistically equivalent (same cipher, different
-key-derivation chain), whose purpose is to keep the wavefront ≡
-megakernel ≡ fused-kernel equality invariants testable.
+are BIT-IDENTICAL. The original `utils/rng.py` jax.random path remains
+the default and the oracle; ktf is a parallel RNG mode, statistically
+equivalent (same cipher, different key-derivation chain), whose purpose
+is to keep the wavefront ≡ megakernel ≡ fused-kernel equality invariants
+testable.
 
 Counter layout (one threefry block = 2 u32 draws):
   c0 = pixel_id                      (i32; < 2^31 pixels)
@@ -121,8 +120,7 @@ def counter(sample, bounce, purpose: int):
 
 class KtfSampler(NamedTuple):
     """Per-lane draw context: pixel ids + the (sample, bounce) word.
-    Works on any array shape ([N] in the XLA integrators, (8,128) tiles
-    inside the Pallas kernel). Implements the Sampler protocol
+    Works on any array shape. Implements the Sampler protocol
     (utils/rng.py): uniform / uniform_pair / unit_vector / disk."""
 
     k0: jnp.ndarray      # i32[] key word

@@ -2,7 +2,7 @@
 
 The reference keeps one mutable curand state per pixel
 (CUDAKernels.h:18-26) and draws rejection-sampled points
-(Core/Utility.cuh:45-71). The TPU build uses stateless `jax.random`
+(Core/Utility.cuh:45-71). This build uses stateless `jax.random`
 (threefry) with a *counter-based lane key* scheme:
 
     lane_key = fold(fold(fold(base, pixel_id), sample), bounce)
@@ -86,8 +86,8 @@ def random_in_unit_disk(keys: jax.Array, purpose: int) -> jnp.ndarray:
 # Draw-site-level abstraction shared by the two RNG impls: the default
 # jax.random path (this class — results identical to the historical
 # fold-chain code) and the kernel-portable counter-based path
-# (utils/ktf.KtfSampler, used verbatim inside the fused Pallas
-# megakernel). Integrators construct one per bounce and pass it to
+# (utils/ktf.KtfSampler, whose spec the fused path-loop kernel
+# implements in C++). Integrators construct one per bounce and pass it to
 # camera.generate_rays / materials.scatter_params.
 
 from typing import NamedTuple  # noqa: E402

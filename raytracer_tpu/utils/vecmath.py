@@ -1,8 +1,8 @@
 """Batched 3-vector math over trailing-axis-3 jnp arrays.
 
-TPU-native replacement for the reference's scalar Vec3 class
+Replacement for the reference's scalar Vec3 class
 (reference: CudaRayTracer/src/Core/Vec3.cuh). Everything here operates on
-`f32[..., 3]` arrays so the whole ray wavefront is one VPU-friendly tensor;
+`f32[..., 3]` arrays so the whole ray wavefront is one data-parallel tensor;
 all functions are trivially differentiable.
 """
 

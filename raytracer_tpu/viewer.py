@@ -1,7 +1,7 @@
 """Progressive preview — the headless analog of the reference's live
 window (WindowManager.h:79-93 redraws the framebuffer every frame; on a
-TPU pod we stream accumulating previews to disk and optionally serve
-them over HTTP).
+headless accelerator host we stream accumulating previews to disk and
+optionally serve them over HTTP).
 
 `progressive_render` accumulates spp in batches and writes a tone-mapped
 preview PNG after every batch — the image sharpens over time exactly

@@ -1,10 +1,12 @@
 """Generate assets/expected_preflight.json — the CPU-exact mean radiance
-of bench.py's pre-flight frame (the known-answer correctness gate that
-must pass on-chip before any rays/s number is reported).
+of the pre-flight frame (the known-answer correctness gate that bench.py
+and chip_smoke.py check on the card before anything else).
 
-Runs on CPU through the SAME integrator path the TPU bench uses (fused
-Pallas trace in interpret mode); all traversal backends are
-equivalence-tested, so one expected value gates every backend.
+Runs the XLA wavefront integrator on the CPU; the traversal backends and
+the fused kernel are equivalence-tested against it, so one expected value
+gates every backend.
+
+Usage: python scripts/make_expected_preflight.py
 """
 
 from __future__ import annotations
@@ -15,11 +17,12 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-os.environ["RAYTRACER_TPU_TRAVERSAL"] = "pallas"
-
 import jax
 
 jax.config.update("jax_platforms", "cpu")
+
+
+PREFLIGHT = dict(width=128, height=40, spp=2, max_bounces=12)
 
 
 def main():
@@ -30,7 +33,7 @@ def main():
     from raytracer_tpu.models.wavefront import render_image_wavefront
     from raytracer_tpu.scene.builder import reference_scene
 
-    p = bench.PREFLIGHT
+    p = PREFLIGHT
     cfg = RenderConfig(width=p["width"], height=p["height"], spp=p["spp"],
                        max_bounces=p["max_bounces"], spp_per_pass=p["spp"])
     scene = reference_scene(assets_dir="assets/models", build_bvh=True)
@@ -38,14 +41,15 @@ def main():
     img = render_image_wavefront(scene, cam, cfg, jax.random.key(0))
     mean = float(img.mean())
     # Same frame under the kernel-portable counter RNG (utils/ktf.py) —
-    # the stream the fused path-loop megakernel draws from. A different
+    # the stream the fused path-loop kernel draws from. A different
     # RNG stream shifts the Monte-Carlo mean slightly, so the fused
     # backend gates against this value instead.
     img_ktf = render_image_wavefront(scene, cam, cfg.replace(rng_impl="ktf"),
                                      jax.random.key(0))
     mean_ktf = float(img_ktf.mean())
     out = {"mean_rgb": mean, "mean_rgb_ktf": mean_ktf, "config": p,
-           "note": "CPU-exact preflight mean for bench.py's correctness gate; "
+           "note": "CPU-exact preflight mean for the correctness gate of "
+                   "bench.py and chip_smoke.py; "
                    "regenerate with scripts/make_expected_preflight.py after "
                    "any semantic change to the integrator/scene/camera."}
     with open(bench.EXPECTED_FILE, "w") as f:

@@ -7,7 +7,7 @@ Launched by tests/test_multiprocess.py (and usable manually):
 Each process initializes jax.distributed, builds the same scene, renders
 the image sharded over the GLOBAL device mesh (one CPU device per
 process), all-gathers the result, and rank 0 writes it to outdir. This
-exercises the identical code path a TPU pod slice uses
+exercises the identical code path a multi-host accelerator run uses
 (parallel/multihost.py), minus the hardware.
 """
 

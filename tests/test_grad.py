@@ -238,7 +238,7 @@ def test_edge_aware_lights_forward_identical_and_roughness_grad():
     metal ROUGHNESS — whose gradient is ~0 under pure detached
     visibility (it only moves detached scatter directions) — must pick
     up a nonzero gradient through the smoothed light boundary
-    (VERDICT r3 next #2 / BASELINE north star)."""
+    (BASELINE north star)."""
     from raytracer_tpu.scene.builder import cornell_materials_scene, build_scene_bvh4
 
     scene = cornell_materials_scene()
@@ -326,8 +326,7 @@ def test_joint_camera_pose_step_and_lr_scales(scene):
         params, state, loss = step(params, state)
         losses.append(float(loss))
     # At this toy resolution the pose landscape is rugged; assert descent
-    # happens (best < first), not monotone convergence — the production
-    # settings are validated in scripts/inverse_tpu_r05.py.
+    # happens (best < first), not monotone convergence.
     assert min(losses) < losses[0], losses
     # lr scale 0 freezes the field exactly; scaled fields move.
     assert float(params["cam_pitch"]) == pitch0

@@ -2,7 +2,7 @@
 config axis.
 
 The invariant family: within rng_impl="ktf", megakernel ≡ wavefront ≡
-(later) the fused Pallas kernel, because all three call the SAME
+the fused path-loop kernel, because all three compute the SAME
 threefry2x32 function on the same (pixel, sample, bounce, purpose)
 counters. Across rng impls agreement is statistical only.
 """

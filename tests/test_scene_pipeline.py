@@ -61,48 +61,3 @@ def test_native_and_python_builders_agree(scene):
     scene_py = scene.replace(bvh4=build_bvh4(scene.mesh, build_lbvh(scene.mesh)))
     img_py = np.asarray(render_image(scene_py, _cam(cfg), cfg, key))
     np.testing.assert_allclose(img_native, img_py, atol=1e-5, rtol=1e-5)
-
-
-def test_fused_trace_matches_generic(scene):
-    """The zero-gather Pallas trace+shade path (interpret mode on CPU)
-    agrees with intersect_scene + shade_hit + material lookup."""
-    from raytracer_tpu.camera import generate_rays
-    from raytracer_tpu.ops import intersect as isect
-    from raytracer_tpu.ops import materials as mat_ops
-    from raytracer_tpu.utils import rng as rngu
-
-    cfg = RenderConfig(width=64, height=64, spp=1, max_bounces=2)
-    cam = _cam(cfg)
-    import jax.numpy as jnp
-
-    px = jnp.tile(jnp.arange(64, dtype=jnp.int32), 64)
-    py = jnp.repeat(jnp.arange(64, dtype=jnp.int32), 64)
-    keys = rngu.lane_keys(jax.random.key(0), py * 64 + px)
-    o, d = generate_rays(cam, px, py, 64, 64, keys)
-
-    fh = isect.trace_frame_fused(scene, o, d, 1e-3, interpret=True)
-    ids = isect.intersect_scene(scene, o, d, 1e-3)
-    attrs = isect.shade_hit(scene, o, d, ids)
-    params = mat_ops.lookup_params(scene.materials, attrs.mat_id)
-
-    np.testing.assert_array_equal(np.asarray(fh.hit), np.asarray(ids.hit))
-    hit = np.asarray(ids.hit)
-    np.testing.assert_allclose(np.asarray(fh.point)[hit], np.asarray(attrs.point)[hit],
-                               atol=1e-4, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(fh.normal)[hit], np.asarray(attrs.normal)[hit],
-                               atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(fh.front_face)[hit],
-                                  np.asarray(attrs.front_face)[hit])
-    np.testing.assert_array_equal(np.asarray(fh.params.mtype)[hit],
-                                  np.asarray(params.mtype)[hit])
-    np.testing.assert_allclose(np.asarray(fh.params.albedo)[hit],
-                               np.asarray(params.albedo)[hit], atol=1e-6)
-
-    # Active-mask: live lanes get identical results; masked lanes are
-    # dead weight whose traversal is skipped (t_lim = -1).
-    act = (px % 3 != 0)
-    fh_m = isect.trace_frame_fused(scene, o, d, 1e-3, interpret=True, active=act)
-    live = np.asarray(act)
-    np.testing.assert_array_equal(np.asarray(fh_m.hit)[live], np.asarray(fh.hit)[live])
-    np.testing.assert_allclose(np.asarray(fh_m.point)[live & hit],
-                               np.asarray(fh.point)[live & hit], atol=1e-6)

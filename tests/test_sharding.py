@@ -118,7 +118,7 @@ def test_interleave_permutation_contract():
 
 
 def test_sharded_wavefront_interleave_active(scene):
-    """Interleave path EXERCISED in a render (ADVICE r3): 128x128 → 16
+    """Interleave path EXERCISED in a render: 128x128 → 16
     packets on the 8-device mesh, so g % n_shards == 0 with a
     non-identity permutation (every prior test used g=2 and silently
     fell back to contiguous). Interleaved == contiguous ==
@@ -138,7 +138,7 @@ def test_sharded_wavefront_interleave_active(scene):
 
 
 def test_rebalanced_drain_matches_single_device(scene):
-    """Cross-shard drain rebalancing (VERDICT r3 next #7): pending lanes
+    """Cross-shard drain rebalancing: pending lanes
     pool over the mesh and re-stripe, so the image must still equal the
     single-device wavefront (pixel-keyed RNG + running-total acc
     migration make the migration invisible), and the per-shard
@@ -163,7 +163,7 @@ def test_scaling_report_efficiency_normalization(scene):
     """scaling_report efficiency is ALWAYS normalized to the 1-device
     run — even when the caller's count list starts at 2, the 1-device row
     is measured and added so 1→2 loss can't be silently hidden
-    (VERDICT r2 weak #7)."""
+"""
     from raytracer_tpu.parallel import multihost
 
     cfg = RenderConfig(width=16, height=8, spp=2, max_bounces=3)

@@ -3,8 +3,6 @@ oversized triangles (Cornell walls/boxes/light) are brute-forced while
 the BVH covers only the dense mesh. Every traversal backend must agree
 exactly, and the split must preserve original face ids/materials."""
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +20,7 @@ def scene():
 @pytest.fixture(scope="module")
 def rays():
     rng = np.random.default_rng(7)
-    n = 4096  # >= PACKET_MIN_RAYS so packet/pallas dispatch engages
+    n = 4096  # >= PACKET_MIN_RAYS so the packet traversal engages
     o = jnp.asarray(rng.uniform(-0.28, 0.28, (n, 3)).astype(np.float32))
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
@@ -47,60 +45,60 @@ def test_partition_selects_cornell_tris(scene):
 def test_backends_agree_on_two_level_scene(scene, rays):
     o, d = rays
     res = {}
-    for be in ("lane", "packets", "pallas"):
-        os.environ["RAYTRACER_TPU_TRAVERSAL"] = be
-        try:
-            ids = isect.intersect_scene(scene, o, d, 1e-3)
-        finally:
-            del os.environ["RAYTRACER_TPU_TRAVERSAL"]
+    for be in ("lane", "packets"):
+        ids = isect.intersect_scene(scene, o, d, 1e-3, backend=be)
         res[be] = (np.asarray(ids.t), np.asarray(ids.prim_id),
                    np.asarray(ids.prim_type))
     t0, p0, y0 = res["lane"]
     assert (t0 < 1e30).mean() > 0.8  # interior rays: nearly all hit
-    for be in ("packets", "pallas"):
+    for be in ("packets",):
         t1, p1, y1 = res[be]
         np.testing.assert_allclose(t1, t0, rtol=1e-5)
         np.testing.assert_array_equal(p1, p0)
         np.testing.assert_array_equal(y1, y0)
 
 
-def test_fused_trace_two_level_materials(scene, rays):
-    """The in-kernel brute pre-pass must return the Cornell materials
-    (in particular the ceiling light) — a regression guard for the
-    wavefront path going dark."""
-    o, d = rays
-    fh = isect.trace_frame_fused(scene, o, d, 1e-3, interpret=True)
-    ids = isect.intersect_scene(scene, o, d, 1e-3)
-    attrs = isect.shade_hit(scene, o, d, ids)
-    hit = np.asarray(ids.hit)
-    np.testing.assert_array_equal(np.asarray(fh.hit), hit)
-    from raytracer_tpu.ops import materials as mat_ops
+def test_lane_traversal_matches_brute_force(scene, rays):
+    """The per-lane XLA walk (ops/bvh4.intersect_bvh4, the GPU's wavefront
+    traversal) over the two-level scene equals brute force over every
+    triangle and sphere."""
+    from raytracer_tpu.ops import sphere as sphere_ops
+    from raytracer_tpu.ops import triangle as tri_ops
 
-    params = mat_ops.lookup_params(scene.materials, attrs.mat_id)
-    np.testing.assert_array_equal(np.asarray(fh.params.mtype)[hit],
-                                  np.asarray(params.mtype)[hit])
-    # Some rays must see the emissive ceiling light.
-    assert (np.asarray(fh.params.emission)[hit].sum(axis=1) > 0).any()
+    o, d = rays[0][:512], rays[1][:512]
+    ids = isect.intersect_scene(scene, o, d, 1e-3, backend="lane")
+    brute = jax.jit(lambda o, d: tri_ops.intersect_tris_brute(
+        o, d, scene.mesh.vertices, scene.mesh.faces, 1e-3, isect.BIG))
+    parts = [brute(o[i:i + 64], d[i:i + 64]) for i in range(0, 512, 64)]
+    tt = np.concatenate([np.asarray(p[0]) for p in parts])
+    tid = np.concatenate([np.asarray(p[1]) for p in parts])
+    ts, sid = sphere_ops.intersect_spheres(
+        o, d, scene.spheres.center, scene.spheres.radius, 1e-3, isect.BIG)
+    ts, sid = np.asarray(ts), np.asarray(sid)
+    tri_wins = tt < ts
+    t_ref = np.where(tri_wins, tt, ts)
+    assert (t_ref < 1e30).mean() > 0.8  # interior rays: nearly all hit
+    np.testing.assert_allclose(np.asarray(ids.t), t_ref, rtol=1e-5)
+    np.testing.assert_array_equal(np.asarray(ids.prim_type),
+                                  np.where(tri_wins, isect.PRIM_TRI,
+                                           isect.PRIM_SPHERE))
+    np.testing.assert_array_equal(np.asarray(ids.prim_id),
+                                  np.where(tri_wins, tid, sid))
 
 
 def test_interior_showcase_brightness(scene):
     """End-to-end guard for the headline workload: a tiny interior
-    render through the fused Pallas path (interpret) must land in a
-    sane radiance band — a dark frame means the light/material routing
-    through the kernel broke (regression seen only on-TPU 2026-08-18:
-    mean 0.27 → 0.04)."""
+    render through the fused kernel must land in a sane radiance band —
+    a dark frame means the light/material routing through the kernel
+    broke."""
     from raytracer_tpu.camera import showcase_camera
     from raytracer_tpu.config import RenderConfig
-    from raytracer_tpu.models.wavefront import render_image_wavefront
+    from raytracer_tpu.models.fused import render_image_fused
 
-    # >= PACKET_MIN_RAYS lanes so the fused Pallas path engages.
-    cfg = RenderConfig(width=128, height=40, spp=2, max_bounces=12)
+    cfg = RenderConfig(width=128, height=40, spp=2, max_bounces=12,
+                       rng_impl="ktf")
     cam = showcase_camera(cfg)
-    os.environ["RAYTRACER_TPU_TRAVERSAL"] = "pallas"
-    try:
-        img = np.asarray(render_image_wavefront(scene, cam, cfg, jax.random.key(0)))
-    finally:
-        del os.environ["RAYTRACER_TPU_TRAVERSAL"]
+    img = np.asarray(render_image_fused(scene, cam, cfg, jax.random.key(0)))
     m = img.mean()
     assert 0.1 < m < 0.8, m
     # Ceiling-light pixels blow out well above the walls.

@@ -42,7 +42,7 @@ def test_resumable_render_matches_direct(scene, tmp_path):
 
 def test_resume_rejects_rng_stream_mismatch(scene, tmp_path):
     """A checkpoint written under one RNG stream must NOT be resumed by
-    an integrator drawing a different stream (ADVICE r3 medium): mixing
+    an integrator drawing a different stream: mixing
     ktf-counter and jax.random samples in one accumulator silently
     breaks the resumed==uninterrupted invariant. The mismatched resume
     restarts the accumulation instead."""
@@ -138,7 +138,7 @@ def test_resumable_fused_matches_single_pass(tmp_path):
                       fov_degrees=cfg.fov_degrees, aperture=cfg.aperture,
                       position=(0.0, 0.05, 0.29), pitch=-5.0)
     key = jax.random.key(3)
-    direct = np.asarray(render_image_fused(sc, cam, cfg, key, interpret=True))
+    direct = np.asarray(render_image_fused(sc, cam, cfg, key))
     ck = os.path.join(tmp_path, "fused.npz")
     resumed = np.asarray(render_image_resumable(sc, cam, cfg, key, ck,
                                                 integrator="fused"))

@@ -59,7 +59,7 @@ def test_spp_batched_render_matches_single_pass(scene):
 def test_drain_cascade_bit_exact(scene):
     """The drain-tail compaction cascade must be BIT-identical to the
     uncompacted (drain_cascade=()) integrator — the invariant the
-    config.py comment claims (ADVICE r2): draws depend only on
+    config.py comment claims: draws depend only on
     (pixel, sample, bounce) and per-lane fp accumulation order is
     preserved through the pack/unpack."""
     base = RenderConfig(width=24, height=12, spp=8, max_bounces=8)
